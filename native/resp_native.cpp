@@ -1,7 +1,7 @@
 // Native host-side runtime for respmon_tpu.
 //
 // The reference delegates its host work to OpenCV's C++ (capture, cvtColor,
-// dtype conversion — reference base.py:227-233).  The TPU deployment's
+// dtype conversion — reference base.py:227-233).  The deployment's
 // host-side hot path is the camera->HBM feed: decode threads push frames,
 // the device-feeder thread pops the freshest frame and uploads it.  This
 // file provides the native pieces of that path:

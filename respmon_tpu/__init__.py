@@ -1,4 +1,4 @@
-"""respmon_tpu — a TPU-native (JAX/XLA/Pallas/pjit) respiration-monitoring framework.
+"""respmon_tpu — a JAX respiration-monitoring framework.
 
 Re-implements the full capability surface of the reference ``respmon`` project
 (webcam Eulerian-magnification ROI calibration, per-frame motion extraction via

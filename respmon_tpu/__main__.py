@@ -15,7 +15,7 @@ import logging
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="respmon_tpu",
-        description="TPU-native real-time respiration monitor")
+        description="Real-time camera respiration monitor")
     p.add_argument("target", nargs="?", default="0",
                    help="webcam index or video path (default: 0)")
     p.add_argument("--method", choices=("average", "flow"), default="flow")
@@ -50,6 +50,10 @@ def main(argv=None) -> int:
 
     logging.basicConfig(format="%(asctime)s :: %(message)s",
                         level=logging.INFO)
+
+    from respmon_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     target = int(args.target) if args.target.isdigit() else args.target
 

@@ -67,13 +67,13 @@ class MeasureConfig:
     initialization_length: int = 12     # samples before BPM estimation starts
     peak_threshold: float = 0.3         # peakutils.indexes default `thres`
     max_peaks: int = 32                 # static cap on candidate peaks (masked)
-    # Hybrid f64 refinement of WILD accepted gauss fits (VERDICT r4 #3):
+    # Hybrid f64 refinement of WILD accepted gauss fits:
     # the f32 LM's loose ftol accepts huge extrapolated Gaussians (center
     # many window-spans outside, |ampl| >> data) on windows where scipy's
     # f64 path exhausts maxfev and the reference DROPS the peak — one such
     # extra peak moves BPM by several units.  Suspect lanes (accepted AND
-    # center > 2 spans outside OR |ampl| > 5x data) re-fit in emulated f64
-    # at MINPACK tolerances; measured on the trace corpus this fixes 28/32
+    # center > 2 spans outside OR |ampl| > 5x data) re-fit in f64 at
+    # MINPACK tolerances; measured on the trace corpus this fixes 28/32
     # flips at 6/1532 legitimate accepts lost (bench.py --bpm-corpus).
     f64_refine: bool = True
 
@@ -120,25 +120,12 @@ class MonitorConfig:
     streaming_drift_px: float = 4.0     # min center drift to re-lock
     # Fleet BPM f64 refinement (parallel/streams.py): the hybrid wild-fit
     # refinement (MeasureConfig.f64_refine) re-fits suspect gauss lanes in
-    # EMULATED f64 — and a single persistent suspect lane anywhere in the
-    # fleet batch makes every lockstep step pay the refit while_loop
-    # (measured: the 16x720p fleet segment went 9.2 -> 43.5 ms/step with
-    # refinement on; clean-signal rings hold ~2 persistent wild lanes per
-    # 16 streams).  Fleets default OFF: they accept the pre-refinement
-    # envelope (isolated single-step BPM transients on 4/120 corpus
-    # traces — BENCHMARKS.md §End-to-end BPM decision envelope) for ~4x
-    # step throughput.  Set True for parity-critical fleets; the
-    # single-stream monitor and the whole-clip scan path always follow
-    # MeasureConfig.f64_refine (default on).
+    # f64, and one persistent suspect lane anywhere in the fleet batch
+    # makes every lockstep step run the refit while_loop.  Fleets default
+    # OFF and accept the pre-refinement BPM envelope; set True for
+    # parity-critical fleets.  The single-stream monitor and the whole-clip
+    # scan path always follow MeasureConfig.f64_refine (default on).
     fleet_f64_refine: bool = False
-    # Fleet LK prev-window extraction (parallel/streams.py): False (default)
-    # uses the MXU throughput mode ('onehot1') on TPU — ~12 ms faster per
-    # 64x1080p fleet step than the per-point slice gathers, with tracked
-    # points ulp-seeded against the single-stream path (divergence of the
-    # same class as cv2's own SIMD-variant spread; status decisions and
-    # cv2-tolerance parity unaffected).  True forces the exact slice path:
-    # fleet steps then reproduce the single-stream monitor bit-for-bit.
-    fleet_exact_lk: bool = False
 
     def validate(self) -> "MonitorConfig":
         """Assert-based validation matching reference base.py:24-34."""

@@ -1,7 +1,7 @@
 """Host-side frame capture sources.
 
 The reference reads frames with ``cv2.VideoCapture`` + BGR→gray + uint8→float
-(base.py:46-51, 227-233).  Capture stays host-side/native in the TPU design
+(base.py:46-51, 227-233).  Capture stays host-side/native in this design
 (SURVEY.md §2.1): OpenCV's C++ decoders feed grayscale float frames into the
 device pipeline.  An in-memory array source makes recorded-clip replay and
 synthetic-fixture testing first-class (the reference's de-facto test

@@ -5,7 +5,7 @@ Replaces the reference's ROI extraction (base.py:566-575): binary threshold →
 ``cv2.boundingRect``.  Only the largest component's bounding box is ever used,
 so exact contour topology is unnecessary (SURVEY.md §2.1).
 
-TPU-native design: iterative min-label propagation over the 8-neighborhood
+Design: iterative min-label propagation over the 8-neighborhood
 (findContours extracts 8-connected white regions) accelerated with pointer
 jumping — each pixel holds the smallest flat index reachable in its component;
 a ``while_loop`` runs neighbor-min + label-gather rounds to a fixed point in
@@ -88,16 +88,14 @@ def _segmented_min_scan(lab: jnp.ndarray, fg: jnp.ndarray, axis: int,
                         big: int) -> jnp.ndarray:
     """Min-propagate labels along ``axis`` within contiguous foreground
     runs, both directions: a whole run equalizes in O(log n) parallel
-    steps with zero gathers (TPU gathers on megapixel images are the CCL
+    steps with zero gathers (gathers on megapixel images are the CCL
     bottleneck otherwise).
 
     Hillis-Steele doubling with CONTIGUOUS shifts: at step d the carry
     (m, blocked) absorbs the carry from d elements behind unless a
     background boundary intervened.  ``lax.associative_scan`` computes the
-    same thing but lowers to stride-2 interleaved slices, which cost ~8x
-    more on TPU (vector relayouts) and dominate compile time — measured
-    325 ms -> 43 ms for a 44-sweep 1080p labeling when replaced with this
-    formulation."""
+    same thing but lowers to stride-2 interleaved slices, which cost more
+    and dominate compile time."""
     n = lab.shape[axis]
     m0 = jnp.where(fg, lab, big)
     b0 = ~fg

@@ -15,7 +15,7 @@ minDistance=7, blockSize=7)`` (base.py:91-94, 365-366).  OpenCV's algorithm:
   4. Process candidates by descending response; keep one if no kept corner
      lies strictly within ``minDistance`` (Euclidean); stop at maxCorners.
 
-TPU-native design: the response map is a fused stencil (separable Sobel + box
+Design: the response map is a fused stencil (separable Sobel + box
 sum); the greedy selection is a bounded ``fori_loop`` of argmax+mask rounds
 into a fixed (max_corners, 2) masked point buffer — static shapes end to end.
 Tie-breaking inside a round picks the smallest flat index (cv2's unstable

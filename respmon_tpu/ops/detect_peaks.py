@@ -15,7 +15,7 @@ reference's prototype exposes):
     neighbors; ``mpd``: greedy min-distance keeping taller peaks first
     (ties: later index first); ``valley=True`` inverts the signal.
 
-TPU-native: fixed-shape masked comparisons + the same bounded
+Design: fixed-shape masked comparisons + the same bounded
 argmax-suppression loop pattern as ``ops.peaks``.
 """
 

@@ -29,8 +29,8 @@ def uint8_to_float(img: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     ``q + (x - q*255) * r``, exhaustively correctly-rounded in plain f32,
     with ``q`` behind ``lax.optimization_barrier`` so the simplifier
     cannot collapse ``q*255`` back to ``x`` (which zeroes the residual
-    and silently degrades to the multiply — caught by bench.py's
-    on-device ``_check_u8_widen``).  float64 output reproduces the
+    and silently degrades to the multiply — caught on the device by
+    ``utils/parity.u8_widen_mismatches``).  float64 output reproduces the
     reference multiply verbatim.
     """
     if jnp.dtype(dtype) == jnp.float64:
@@ -46,7 +46,7 @@ def ingest_frames(frames, dtype) -> jnp.ndarray:
     bytes (widened on device by the consuming kernel), anything else casts
     to the pipeline compute ``dtype`` host-side.
 
-    The u8 ingest contract is float32 compute (the TPU production dtype;
+    The u8 ingest contract is float32 compute (the production dtype;
     ``uint8_to_float``'s f32 path is the bit-exact image of the reference
     conversion chain) — requesting a different compute dtype with u8
     frames raises instead of silently downgrading.

@@ -1,5 +1,5 @@
 """Temporal bandpass with the reference's exact packed-rfft semantics — as a
-single MXU matmul.
+single matmul.
 
 The reference (transforms.py:82-102) does, per pixel along the T axis:
 
@@ -22,8 +22,8 @@ chain collapses into one real (T, T) operator built on host in float64:
 
 with the packing matrix P (P[0]=cos(0·), P[2j-1]=cos(2πjt/T),
 P[2j]=-sin(2πjt/T), and for even T, P[T-1]=cos(πt)).  On device the bandpass
-is then ``M @ X`` over flattened pixels — ideal for the TPU MXU (one
-(T,T)x(T,HW) matmul per pyramid level instead of per-pixel FFTs), and
+is then ``M @ X`` over flattened pixels (one (T,T)x(T,HW) matmul per
+pyramid level instead of per-pixel FFTs), and
 bit-faithful to the reference since the operator itself is exact.
 """
 
@@ -82,15 +82,15 @@ def temporal_bandpass_fft(vid: jnp.ndarray, fps: float, freq_min: float,
                           amplification: float) -> jnp.ndarray:
     """Apply the packed-rfft bandpass along axis 0 of ``vid`` (T, ...).
 
-    Replaces reference transforms.py:82-102 with one MXU matmul.
+    Replaces reference transforms.py:82-102 with one matmul.
     """
     n = vid.shape[0]
     op = packed_bandpass_operator(n, float(fps), float(freq_min),
                                   float(freq_max), float(amplification))
     M = jnp.asarray(op, dtype=vid.dtype)
     flat = vid.reshape(n, -1)
-    # HIGHEST precision: the TPU default bf16 matmul shifts heatmap values
-    # enough to move bbox edges on marginal pixels (parity-load-bearing).
+    # HIGHEST precision: a reduced default (bf16, or TF32 on a GPU) shifts
+    # heatmap values enough to move bbox edges on marginal pixels.
     out = jnp.dot(M, flat, preferred_element_type=flat.dtype,
                   precision=jax.lax.Precision.HIGHEST)
     return out.reshape(vid.shape)
@@ -104,8 +104,8 @@ def temporal_bandpass_iir(vid: jnp.ndarray, fps: float, freq_min: float,
 
     Defaults to a second-order-sections cascade: the transfer-function form
     the reference uses is float64-only (it overflows to inf in float32 —
-    the narrowband poles sit at radius ~0.99), while SOS is stable in the
-    TPU's native single precision.  ``sos=False`` reproduces the reference's
+    the narrowband poles sit at radius ~0.99), while SOS is stable in
+    single precision.  ``sos=False`` reproduces the reference's
     exact (b, a) filtering for float64 parity tests."""
     from respmon_tpu.ops import filters
 

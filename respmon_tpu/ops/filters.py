@@ -7,7 +7,7 @@ The reference uses scipy's native filters (transforms.py:38-79):
   - ``butter_bandpass_filter`` (order 6, ``lfilter``) — the IIR alternative to
     the FFT temporal bandpass (transforms.py:72-79).
 
-TPU-native design: coefficients are designed on host at trace time with scipy
+Design: coefficients are designed on host at trace time with scipy
 (static given fps), closed over by jitted kernels; the causal IIR runs as a
 ``lax.scan`` linear recurrence; ``filtfilt`` reproduces scipy's odd-extension
 padding and ``lfilter_zi`` initial conditions exactly.
@@ -85,7 +85,7 @@ def design_butter_bandpass_sos(lowcut: float, highcut: float, fs: float,
     order-6 narrowband Butterworth (the reference's IIR alternative,
     transforms.py:74) has poles at radius ~0.99 and diverges to inf in
     float32; the SOS cascade is stable in single precision — the required
-    form for the TPU compute path."""
+    form for the float32 compute path."""
     from scipy.signal import butter
 
     nyq = 0.5 * fs
@@ -153,14 +153,13 @@ def lfilter_assoc(coeffs: FilterCoeffs, x: jnp.ndarray,
     The DF2T recurrence is affine: d_{k+1} = A d_k + c x_k with constant A
     (companion form) and y_k = b0 x_k + d_k[0].  Composing affine maps is
     associative, so the state sequence computes in O(log T) parallel levels
-    of small (order x order) matmuls instead of T sequential steps — the
-    idiomatic TPU formulation for IIR chains (identical math, regrouped
-    rounding).  1-D input only; batch via vmap.
+    of small (order x order) matmuls instead of T sequential steps
+    (identical math, regrouped rounding).  1-D input only; batch via vmap.
 
     The prefix runs as Hillis-Steele doubling with CONTIGUOUS pad+slice
     shifts rather than ``lax.associative_scan``, whose lowering emits
-    stride-2 interleaved slices that relayout poorly on TPU (~8x cost and
-    far larger compiles at scale — same finding as ops/ccl.py).
+    stride-2 interleaved slices and far larger compiles at scale (same
+    finding as ops/ccl.py).
     """
     dtype = x.dtype
     p = coeffs.order
@@ -185,7 +184,7 @@ def lfilter_assoc(coeffs: FilterCoeffs, x: jnp.ndarray,
                              axis=0)
         vs = jnp.concatenate([jnp.broadcast_to(zero, (d, p)), v[:-d]],
                              axis=0)
-        hi_p = jax.lax.Precision.HIGHEST  # TPU default matmul is bf16
+        hi_p = jax.lax.Precision.HIGHEST  # default may be TF32 on a GPU
         M, v = (jnp.einsum("tij,tjk->tik", M, ms, precision=hi_p),
                 jnp.einsum("tij,tj->ti", M, vs, precision=hi_p) + v)
         d *= 2

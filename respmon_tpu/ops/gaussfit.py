@@ -9,7 +9,7 @@ the peak (base.py:336-337), and an accepted peak requires ``params[2] <
 gaussian_cutoff`` (base.py:334) — note the *signed* comparison, reproduced
 here.
 
-TPU-native design: a fixed-iteration scaled trust-region Levenberg-Marquardt
+Design: a fixed-iteration scaled trust-region Levenberg-Marquardt
 loop (lmdif's essential structure: column-norm parameter scaling D, trust
 radius with gain-ratio updates, ftol/xtol convergence tests), batched over all
 candidate windows at once via ``vmap``.  Masked points get zero residual
@@ -17,30 +17,28 @@ weight so edge-clamped (shorter) windows fit correctly inside a fixed-shape
 buffer.  Non-convergence within the iteration budget maps to
 ``converged=False``, the analog of the RuntimeError path.
 
-Decision-envelope contract (characterized round 4, VERDICT r3 #5): the f64
+Decision-envelope contract: the f64
 path agrees with ``scipy.optimize.curve_fit`` accept/reject on 119/120 mixed
-probe windows; the f32 (TPU production) path agrees 100% on realistic peak
+probe windows; the f32 (production) path agrees 100% on realistic peak
 windows in the suite and ~95-97% once pure-noise/degenerate windows are
 included (719-window sweep: 687/720 at the default tolerances, 2
 false-rejects).  The residual flips are windows scipy rejects by *exhausting
 maxfev* — a property of its f64 iterate path that f32 arithmetic cannot
-reproduce: full-f64 emulation on-device replicates the verdicts but measured
-43x slower; tightening ftol/xtol (3.45e-4 → 3e-7 sweep) and
+reproduce: a full-f64 fit on device replicates the verdicts but costs far
+more; tightening ftol/xtol (3.45e-4 → 3e-7 sweep) and
 perturbed-restart consensus both fail to separate the flip class.  The
 envelope is pinned by tests/test_gaussfit.py::
-test_f32_envelope_including_noise_windows and re-measured on the real device
-every bench run (bench.py ``_check_gaussfit_parity`` →
-``gaussfit_device_agreement_*`` JSON keys).
+test_f32_envelope_including_noise_windows and re-measured on the device by
+every bench and smoke run (``utils/parity.gaussfit_agreement``).
 
-Round 5 closes the END-TO-END envelope: wild converged f32 fits (the
-scipy-maxfev flip class — center far outside the window or amplitude far
-above the data) are re-fit in emulated f64 at MINPACK tolerances by the BPM
+The END-TO-END envelope: wild converged f32 fits (the scipy-maxfev flip
+class — center far outside the window or amplitude far above the data)
+are re-fit in f64 at MINPACK tolerances by the BPM
 stage (pipeline/bpm.py ``f64_refine``; ``fd_jacobian`` here exists for that
 characterization — the forward-difference variant measured strictly worse
-than the analytic 500-iteration refit and does not ship).  Whole-trajectory
-result on the 120-trace corpus (real TPU, BENCH_CORPUS_r05.json): 0/21600
-has-BPM mismatches, per-step |ΔBPM| p99.9 = 0.022, 116/120 traces fully
-within ±0.5 (see BENCHMARKS.md §End-to-end BPM decision envelope).
+than the analytic 500-iteration refit and does not ship).  ``bench.py
+--bpm-corpus`` measures the whole-trajectory envelope against the
+scipy-f64 chain.
 """
 
 from __future__ import annotations
@@ -52,10 +50,10 @@ import jax
 import jax.numpy as jnp
 
 
-# All dots in the LM loop run at HIGHEST precision: the TPU default matmul
-# precision is bf16, which perturbs the iterate path enough to flip
-# accept/reject decisions vs the CPU/scipy oracle (observed at bench
-# geometry, round 3).  These are 3x3-scale products — the cost is nil.
+# All dots in the LM loop run at HIGHEST precision: a reduced default
+# matmul precision (bf16, or TF32 on a GPU) perturbs the iterate path
+# enough to flip accept/reject decisions vs the CPU/scipy oracle.  These
+# are 3x3-scale products — the cost is nil.
 _HI = jax.lax.Precision.HIGHEST
 
 # Iteration budget for the safeguarded Newton solve of the trust-region
@@ -80,7 +78,7 @@ def _gauss(t, ampl, center, dev):
 
 def _solve3(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 linear solve via the adjugate (no LAPACK custom call:
-    TPU-friendly and vmappable).  Returns zeros for near-singular systems
+    vmappable).  Returns zeros for near-singular systems
     (treated as a null step by the trust-region loop)."""
     a00, a01, a02 = A[0, 0], A[0, 1], A[0, 2]
     a10, a11, a12 = A[1, 0], A[1, 1], A[1, 2]
@@ -112,7 +110,7 @@ def gaussian_fit_single(t: jnp.ndarray, y: jnp.ndarray, mask: jnp.ndarray,
     where ``t[0]``/``dt`` refer to the first *valid* (masked-in) samples.
 
     Default tolerances are sqrt(machine-eps) of the input dtype (MINPACK's
-    1.49e-8 for float64; ~3.5e-4 for the float32 TPU path, below which f32
+    1.49e-8 for float64; ~3.5e-4 for the float32 path, below which f32
     roundoff makes the ftol/xtol tests unreachable).
     """
     dtype = y.dtype
@@ -125,8 +123,7 @@ def gaussian_fit_single(t: jnp.ndarray, y: jnp.ndarray, mask: jnp.ndarray,
     # a ``jax.enable_x64(True)`` region by the hybrid refinement
     # (pipeline/bpm.py) while the surrounding module is x64-off, and
     # default-dtype index ops (argmax -> i64) then fail MLIR verification
-    # on this jaxlib (mixed-mode module type mismatch); i64 is also a
-    # poor fit for TPU.
+    # on this jaxlib (mixed-mode module type mismatch).
     nvalid = jnp.sum(mask, dtype=jnp.int32)
 
     npts = t.shape[0]

@@ -8,7 +8,7 @@ projection vector is ``[e1_x, e2_x]`` (x-components of both eigenvectors),
 a reference quirk reproduced here — then projects the whole buffer and takes
 the last element.
 
-TPU-native design: closed-form symmetric 2x2 eigendecomposition (no LAPACK),
+Design: closed-form symmetric 2x2 eigendecomposition (no LAPACK),
 masked mean/covariance over a fixed ring buffer, all fused into the jitted
 measure step.  Sign convention: LAPACK dgeev's eigenvector signs are
 phase-arbitrary (verified empirically: no component-sign rule reproduces
@@ -24,7 +24,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-# TPU default matmul precision is bf16; the eigenvector (and thus the
+# The default matmul precision may be reduced (TF32 on a GPU); the eigenvector (and thus the
 # projection sign/scale) is parity-load-bearing, so force full f32.
 _HI = jax.lax.Precision.HIGHEST
 

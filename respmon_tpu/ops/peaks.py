@@ -15,7 +15,7 @@ reproduced here exactly:
      ``argsort(...)[::-1]`` on a stable sort); each kept peak suppresses all
      candidates within ``min_dist``.
 
-TPU-native formulation: everything is computed as fixed-shape masked tensor
+Formulation: everything is computed as fixed-shape masked tensor
 ops on a right-aligned signal buffer; the greedy suppression is a bounded
 ``fori_loop`` of argmax+mask steps (<= max_peaks iterations).
 """

@@ -13,7 +13,7 @@ The reference builds 9-level Laplacian video pyramids through OpenCV
     with reflect-101 indexing of s; ``dstsize`` may be odd (trailing odd
     phase dropped), which the reference relies on for its odd tiny levels.
 
-TPU-native design: both ops are expressed as static strided-slice weighted
+Design: both ops are expressed as static strided-slice weighted
 sums over the last two axes (XLA fuses these into a handful of vector ops and
 they vmap/batch over (T, streams) for free).  Shapes are static at every
 pyramid level, so the whole 9-level video pyramid traces into one jitted

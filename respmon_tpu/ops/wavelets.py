@@ -61,7 +61,7 @@ def dwt_db4(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     out_full = m - L + 1
     idx = jnp.arange(out_full)[:, None] + jnp.arange(L)[None, :]
     windows = ext[idx]
-    hi_p = jax.lax.Precision.HIGHEST  # TPU default matmul is bf16
+    hi_p = jax.lax.Precision.HIGHEST  # default may be TF32 on a GPU
     a_full = jnp.dot(windows, lo, precision=hi_p)
     d_full = jnp.dot(windows, hi, precision=hi_p)
     # pywt keeps outputs at odd phases: positions 1, 3, 5, ... of the full

@@ -1,10 +1,10 @@
 """Device-mesh helpers.
 
-The reference is single-process/single-device (SURVEY.md §2.2); the TPU
+The reference is single-process/single-device (SURVEY.md §2.2); this
 design scales by placing independent video streams along a ``'streams'``
-mesh axis (pure data parallelism — zero collectives, the ICI stays idle) and
-optionally sharding single large frames spatially (``parallel/spatial.py``,
-halo exchange over ICI neighbors).
+mesh axis (pure data parallelism — zero collectives) and optionally
+sharding single large frames spatially (``parallel/spatial.py``, halo
+exchange between neighbouring devices).
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Spatial tensor parallelism: width-sharded EVM with halo exchange.
 
 For single very large frames (e.g. 4K monitoring, or 1080p calibration
-buffers too big for one chip's HBM) the frame's W axis is sharded across
-ICI neighbors (SURVEY.md §2.2 "TP" row).  The 5-tap pyrDown/pyrUp stencils
+buffers too big for one device's memory) the frame's W axis is sharded
+across neighbouring devices (SURVEY.md §2.2 "TP" row).  The 5-tap pyrDown/pyrUp stencils
 then need 1-2 pixel halos from each neighbor: implemented with
-``shard_map`` + ``lax.ppermute`` ring exchanges (XLA lowers these onto
-ICI), with the global border semantics (REFLECT_101 for pyrDown; cv2
+``shard_map`` + ``lax.ppermute`` ring exchanges, with the global border semantics (REFLECT_101 for pyrDown; cv2
 pyrUp's asymmetric reflect-front/replicate-back) reconstructed at the
 outer edges so the sharded result is bit-identical to the single-device
 kernels.

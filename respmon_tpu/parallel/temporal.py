@@ -2,12 +2,12 @@
 
 Long calibration buffers (the reference supports arbitrary
 ``calibration_buffer_target_length``; BASELINE config 3 uses 300 frames —
-at 4K that is ~10 GB of f32 frames, past a single chip's comfortable HBM
-headroom next to the measurement state) shard naturally along the time
+at 4K that is ~10 GB of f32 frames, past a single device's comfortable
+memory headroom next to the measurement state) shard naturally along the time
 axis: every stage of the EVM chain except the temporal bandpass is
 per-frame.
 
-Layout and collectives (all riding ICI):
+Layout and collectives:
 
 - frames (T, H, W) sharded T across ``mesh[axis]``; the Laplacian band
   pyramid is computed locally per frame (zero communication),

@@ -6,7 +6,7 @@ filtfilt), peakutils min-distance peak detection, per-candidate Gaussian
 curve-fit filtering (drop non-converged, accept signed dev < 10.0), BPM = 60 /
 mean(peak-to-peak interval), appended only when >= 2 accepted peaks.
 
-TPU-native design: fixed-size right-aligned ring buffers with a valid count;
+Design: fixed-size right-aligned ring buffers with a valid count;
 masked filtfilt → masked peak detection → all candidate windows extracted and
 LM-fit in one vmapped batch → masked interval mean.  Everything is one jitted
 function of static (fps-derived) parameters, reused by both the streaming
@@ -90,8 +90,8 @@ def estimate_bpm(data: jnp.ndarray, t: jnp.ndarray, count: jnp.ndarray,
         # the f64 reference path wanders past its budget (reference drops
         # the peak, base.py:336-337) while the f32 loop's loose ftol
         # (3.45e-4, the f32 roundoff floor) calls it converged.  Those
-        # lanes re-fit in f64 (emulated on TPU — jax.enable_x64 inside the
-        # trace) at MINPACK-grade tolerances; non-suspect lanes mask out
+        # lanes re-fit in f64 (jax.enable_x64 inside the trace) at
+        # MINPACK-grade tolerances; non-suspect lanes mask out
         # and cost nothing (done-at-init, the while_loop exits
         # immediately when no lane is live).
         big = jnp.asarray(jnp.inf, vt.dtype)

@@ -12,7 +12,7 @@ calibrated ROI, then either
 plus the ring-buffer discipline (popleft at capacity, base.py:473-475) and
 the time axis t += 1/fps (base.py:481-484).
 
-TPU-native design: the ROI crop is a ``lax.dynamic_slice`` into a
+Design: the ROI crop is a ``lax.dynamic_slice`` into a
 *statically-bucketed* window (ROI dims rounded up to ``roi_bucket`` so jit
 compiles once per bucket, not per ROI) with a validity mask; the flow state
 (points + masks + motion ring) lives in a NamedTuple pytree carried through
@@ -47,26 +47,17 @@ class MeasureSpec:
     fps: float
     features: FeatureParams = FeatureParams()
     lk: LKParams = LKParams()
-    # LK next-window sampling mode for the live step (see
-    # ops/lk.py calc_optical_flow_pyr_lk): 'slices' is exact and O(points)
-    # memory; 'onehot' (bit-identical, MXU-fed) is the fleet throughput
-    # mode; 'patches16' is the legacy bf16 im2col mode.
-    lk_sample: str = "slices"
-    # Live-step prev-window sampling: 'slices' (per-point (3, win+1, win+1)
-    # dynamic slices — latency-bound 2D gathers, ~9 ms/step at 64x100-pt
-    # fleet scale; the bitwise-reference path) or 'onehot1' (per-channel
-    # one-hot MXU extraction — exact pixels, but the fused bilinear
-    # combine drifts at the ulp level vs slices, like cv2's own SIMD
-    # variants; status decisions and cv2-tolerance parity pinned in
-    # tests/test_parallel.py).  The fleet throughput default on TPU.
-    lk_prev_sample: str = "slices"
-    # Whole-clip scan path modes (all bit-identical; see ops/lk.py).
-    # next-window: 'patches' hoists im2col matrices out of the scan (fast
-    # row-takes, ~32 MB/frame HBM at 128x128 crops); prev-window: 'onehot'
-    # replaces the per-point (3, win+1, win+1) dynamic-slice gathers that
-    # dominated the scan step with MXU one-hot extraction.
-    clip_lk_sample: str = "patches"
-    clip_prev_sample: str = "onehot"
+    # LK window sampling modes (see ops/lk.py calc_optical_flow_pyr_lk).
+    # 'slices' takes one contiguous dynamic slice per point and is the
+    # bitwise reference; it is the default in every role because it was
+    # the fastest on the GPU for both the live fleet step and the
+    # whole-clip scan.  The other modes ('onehot', 'patches', 'patches16';
+    # prev-window 'onehot1' for the live step, 'onehot' for the clip
+    # scan) stay selectable here.
+    lk_sample: str = "slices"         # live step, next window
+    lk_prev_sample: str = "slices"    # live step, prev window
+    clip_lk_sample: str = "slices"    # whole-clip scan, next window
+    clip_prev_sample: str = "slices"  # whole-clip scan, prev window
 
     @staticmethod
     def bucket(dim: int, bucket: int, cap: int) -> int:
@@ -456,7 +447,7 @@ def _flow_motion(state: MeasureState, crop, mask, spec: MeasureSpec,
             win=spec.lk.win_size[0], max_level=spec.lk.max_level,
             max_iters=spec.lk.max_iters, eps=spec.lk.epsilon,
             sample=spec.lk_sample, prev_sample=spec.lk_prev_sample)
-        # prev windows: 'slices' (bitwise reference) or 'onehot1' (MXU
+        # prev windows: 'slices' (bitwise reference) or 'onehot1' (matmul
         # throughput mode; exact pixels but ulp-level bilinear drift under
         # different XLA fusion — same caveat as _window_onehot3, which
         # stays reserved for the whole-clip scan where both compared

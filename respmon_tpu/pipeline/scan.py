@@ -47,8 +47,8 @@ def bpm_trace(samples: jnp.ndarray, fps: float,
     frame (base.py:489-491) — sequential, quadratic-ish work.  Each frame's
     estimate depends only on its sample-window prefix, not on any carried
     state, so all T estimates vectorize: build the (T, N) matrix of
-    right-aligned ring windows and ``vmap`` the BPM stage over rows.  On
-    TPU this replaces T sequential trust-region LM solves with one batched
+    right-aligned ring windows and ``vmap`` the BPM stage over rows.  This
+    replaces T sequential trust-region LM solves with one batched
     solve whose while_loop runs to the slowest lane — orders of magnitude
     less sequential depth.
 

@@ -3,10 +3,10 @@
 The reference prototyped a sliding-window EVM that re-filters a rolling
 pyramid buffer every frame instead of batch-calibrating once per 128 frames
 (prototypes/locating.py:94-147 — flagged in SURVEY.md §2.0b as the precedent
-for a streaming TPU calibrator).  Production only ships the batch variant;
+for a streaming calibrator).  Production only ships the batch variant;
 here streaming is a first-class mode:
 
-TPU-native design: per-level rolling (T, h_i, w_i) device buffers updated
+Design: per-level rolling (T, h_i, w_i) device buffers updated
 with a roll+write (no host copies); each ``update`` runs the temporal
 bandpass as the precomputed (T, T) matmul over the kept levels, collapses,
 and reduces the heatmap — all one jitted program per frame.  Because the
@@ -90,8 +90,8 @@ def streaming_absorb(state: StreamingState, frame: jnp.ndarray,
     contiguous fps-rate window) but only pays the localize half every
     ``streaming_interval`` frames.
 
-    Only the KEPT Laplacian levels are built (evm._band_laplacian_levels:
-    the fused Pallas kernel on TPU, the XLA formulation elsewhere) — the
+    Only the KEPT Laplacian levels are built (evm._band_laplacian_levels)
+    — the
     full-resolution Laplacian levels below ``skip_levels_at_top``, which
     the rings never store, are not computed at all (they were the dominant
     cost of the previous full-pyramid absorb at 1080p)."""
@@ -115,9 +115,7 @@ def streaming_absorb_batch(state: StreamingState, frames: jnp.ndarray,
     """Fleet absorb: ``frames`` (S, H, W) into batched rings (S, T, h, w).
 
     Formulated over the whole S-stack (the pyramid ops batch over leading
-    axes, and the Pallas kernel sees one (S, H, W) "video") instead of
-    ``vmap``-of-``streaming_absorb`` — Mosaic kernels don't take an extra
-    vmap batch dimension."""
+    axes) instead of ``vmap``-of-``streaming_absorb``."""
     if frames.dtype == jnp.uint8:
         frames = uint8_to_float(frames)
     from respmon_tpu.pipeline import evm
@@ -137,8 +135,7 @@ def init_streaming_from_buffers_batch(buffers: jnp.ndarray,
                                       cfg: CalibrationConfig
                                       ) -> StreamingState:
     """Fleet warm-start: (S, T, H, W) buffers -> batched rings, via ONE
-    kept-levels pass over the flattened (S*T, H, W) stack (again avoiding
-    vmap over the Pallas kernel)."""
+    kept-levels pass over the flattened (S*T, H, W) stack."""
     from respmon_tpu.pipeline import evm
 
     s = buffers.shape[0]
@@ -160,8 +157,8 @@ def _localize_window(state: StreamingState, frame_hw: Tuple[int, int],
                      coarse: bool) -> StreamingLocate:
     """The localize half of ``streaming_update``: bandpass the rolling
     rings, collapse (to full res, or to the kept-level resolution when
-    ``coarse``), suppress-top, heatmap, threshold, CCL bbox.  Contains no
-    Pallas calls, so it vmaps cleanly for the fleet path."""
+    ``coarse``), suppress-top, heatmap, threshold, CCL bbox.  It vmaps
+    cleanly for the fleet path."""
     h0, w0 = frame_hw
     shapes = pyramid_shapes(h0, w0, cfg.pyramid_levels)
     kept = _kept_levels(cfg)

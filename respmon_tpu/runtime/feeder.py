@@ -1,7 +1,7 @@
 """Double-buffered host→device frame feeder.
 
 The reference's loop blocks on ``cap.read()`` every frame (base.py:416-421).
-The TPU design decouples capture from compute: a host capture thread decodes
+The design decouples capture from compute: a host capture thread decodes
 frames into the native SPSC ring (C++ drop-oldest semantics, so a slow
 device step never backs up the camera), while the consumer pulls the
 freshest frame, uploads it with ``jax.device_put``, and overlaps the next
@@ -28,7 +28,7 @@ class FrameFeeder:
         self.capture = capture
         # dtype: ring slot dtype.  uint8 carries camera-native frames at
         # 4x less ring memory/H2D payload; the device converts
-        # (uint8_to_float is one fused op on the TPU side).
+        # (uint8_to_float is one fused op on the device side).
         self.dtype = np.dtype(dtype)
         self.ring = FrameRing(capacity,
                               (capture.height, capture.width),

@@ -11,7 +11,7 @@ doing the S freshest-frame pops + row copies in one call.
 
 The reference is single-camera (its loop blocks on one ``cap.read()``,
 base.py:416-421); this is the fleet-scale generalization of that I/O
-stage for the multi-stream TPU deployment.
+stage for the multi-stream deployment.
 
 Two lockstep semantics:
 

@@ -61,7 +61,7 @@ def _measure_and_estimate(state, frame, spec, coeffs, min_dist, cfg):
     """One fused live-path dispatch: motion step + BPM estimate.
 
     A single device call per frame instead of two — dispatch latency is the
-    live loop's budget (tunneled deployments pay ~26 ms per call).  The BPM
+    live loop's budget.  The BPM
     stage runs unconditionally and is masked by the >initialization_length
     gate (base.py:489) on the host."""
     new_state, sample = motion.measure_step(state, frame, spec)

@@ -7,7 +7,7 @@ status line (base.py:255-297).  Here the same surface is behind a small
 interface with two backends:
 
   - ``PyqtgraphUI``: faithful recreation (requires pyqtgraph; import is
-    gated so headless/TPU-pod deployments don't need Qt).
+    gated so headless deployments don't need Qt).
   - ``HeadlessUI``: records the same calls (title, image, series) into plain
     attributes — used by tests and server deployments, and doubling as an
     observability hook.

@@ -3,7 +3,7 @@
 This module is the test-time ground truth: a from-scratch numpy/cv2/scipy
 model of every stage of the reference monitor, written against the semantics
 documented in SURVEY.md (with reference file:line citations inline).  It is
-used to validate the JAX/TPU kernels; it is NOT part of the shipped framework.
+used to validate the JAX kernels; it is NOT part of the shipped framework.
 
 peakutils is not installed in this environment, so its entry points used by
 the reference (``indexes`` at base.py:314, ``gaussian_fit``/``gaussian`` at

@@ -1,6 +1,6 @@
 """End-to-end BPM credibility at the flagship bench geometry.
 
-Round-2 VERDICT #1: the headline bench's BPM readout must be proven against
+The headline bench's BPM readout must be proven against
 the golden reference chain at bench scale (640x480, flow, texture motion),
 not just at the small parity-test geometries.  These tests run the exact
 bench fixture through ``measure_clip`` and assert (a) the device BPM tail

@@ -1,11 +1,10 @@
-"""End-to-end BPM decision envelope, pinned (VERDICT r4 #3).
+"""End-to-end BPM decision envelope, pinned.
 
 The per-window gaussfit agreement numbers (93-97%) are not the quantity the
 ±0.5 BPM bar cares about — what matters is how far the DEVICE-f32 BPM
 trajectory can drift from the scipy-f64 golden chain across whole traces.
-This test runs a reduced version of ``bench.py --bpm-corpus`` (the full
-corpus artifact is BENCH_CORPUS_r05.json, measured on the real device):
-for a spread of BPM/noise/fps/fault regimes, every sliding ring window of
+This test runs a reduced version of ``bench.py --bpm-corpus``
+(``respmon_tpu/utils/parity.py``): for a spread of BPM/noise/fps/fault regimes, every sliding ring window of
 every trace goes through BOTH chains and the |ΔBPM| distribution is
 asserted.
 
@@ -13,63 +12,20 @@ Reference: base.py:312-352 (``measure()`` runs on the full ring every
 frame); the golden chain is tests/golden/reference_numpy.measure_bpm.
 """
 
-import numpy as np
-import pytest
+import os
 
-import jax
+import numpy as np
+
 import jax.numpy as jnp
 
-from bench import corpus_traces
 from respmon_tpu.config import MeasureConfig
 from respmon_tpu.ops import filters
 from respmon_tpu.pipeline import bpm as bpm_mod
+from respmon_tpu.utils.parity import bpm_corpus, corpus_traces
 
 from tests.golden import reference_numpy as golden
 
-
-def _run_corpus(traces, cfg, stride=1):
-    n_ring = cfg.buffer_length
-    fns = {}
-
-    def device_fn(fps):
-        if fps not in fns:
-            coeffs = filters.design_butter_lowpass(0.5, fps,
-                                                   cfg.filter_order)
-            min_dist = max(int(np.floor(fps / 1.0)), 1)
-            fns[fps] = jax.jit(jax.vmap(
-                lambda d, tt, c: bpm_mod.estimate_bpm(
-                    d, tt, c, coeffs, min_dist, cfg)))
-        return fns[fps]
-
-    deltas = []
-    n_steps = n_mismatch = 0
-    for tr in traces:
-        y, t, fps = tr["y"], tr["t"], tr["fps"]
-        steps = list(range(cfg.initialization_length + 1, len(y) + 1,
-                           stride))
-        k = len(steps)
-        D = np.zeros((k, n_ring), np.float32)
-        T = np.zeros((k, n_ring), np.float32)
-        C = np.zeros((k,), np.int32)
-        for j, c in enumerate(steps):
-            m = min(c, n_ring)
-            D[j, n_ring - m:] = y[c - m:c]
-            T[j, n_ring - m:] = t[c - m:c]
-            C[j] = m
-        res = device_fn(fps)(jnp.asarray(D), jnp.asarray(T),
-                             jnp.asarray(C))
-        dev_has = np.asarray(res.has_bpm)
-        dev_bpm = np.asarray(res.bpm)
-        for j, c in enumerate(steps):
-            m = min(c, n_ring)
-            ob, _, _, _ = golden.measure_bpm(y[c - m:c], t[c - m:c], fps)
-            orc_has = ob is not None
-            n_steps += 1
-            if orc_has != bool(dev_has[j]):
-                n_mismatch += 1
-            elif orc_has:
-                deltas.append(abs(float(dev_bpm[j]) - ob))
-    return np.asarray(deltas), n_steps, n_mismatch
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_f64_refine_drops_wild_extrapolated_peak():
@@ -114,7 +70,7 @@ def test_f64_refine_drops_wild_extrapolated_peak():
 
 
 def test_f64_refine_works_with_global_x64_disabled():
-    # Production (TPU) runs with jax_enable_x64 OFF; the refinement gets
+    # Production runs with jax_enable_x64 OFF; the refinement gets
     # true f64 via ``jax.enable_x64`` INSIDE the trace.  The conftest
     # enables x64 globally, so this must run in a subprocess with the
     # production configuration — it pins that the mixed-mode trace (a) is
@@ -129,10 +85,10 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 assert not jax.config.jax_enable_x64
 import numpy as np, jax.numpy as jnp
-from bench import corpus_traces
 from respmon_tpu.config import MeasureConfig
 from respmon_tpu.ops import filters
 from respmon_tpu.pipeline import bpm as bpm_mod
+from respmon_tpu.utils.parity import corpus_traces
 tr = corpus_traces(120)[70]
 y, t, fps = tr["y"], tr["t"], tr["fps"]
 cfg = MeasureConfig()
@@ -149,7 +105,7 @@ acc = sorted((np.asarray(r.cand_idx)[np.asarray(r.accept_mask)]
 assert acc == [3, 56, 103], acc   # wild idx-20 peak dropped (oracle set)
 print("X64OFF_REFINE_OK")
 """
-    out = subprocess.run([sys.executable, "-c", code], cwd="/root/repo",
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=600)
     assert "X64OFF_REFINE_OK" in out.stdout, (out.stdout, out.stderr[-2000:])
 
@@ -160,7 +116,9 @@ def test_bpm_corpus_device_f32_tracks_scipy_f64():
     # window comparisons.
     traces = corpus_traces(120)[::7]
     cfg = MeasureConfig()
-    deltas, n_steps, n_mismatch = _run_corpus(traces, cfg, stride=2)
+    res = bpm_corpus(traces, lambda y, t, fps: golden.measure_bpm(
+        y, t, fps)[0], cfg, stride=2)
+    deltas, n_steps, n_mismatch = res.deltas, res.n_steps, res.n_mismatch
 
     assert len(deltas) > 400, "corpus produced too few comparable steps"
     # Where BOTH chains produce a BPM, the f32 device trajectory stays
@@ -171,7 +129,7 @@ def test_bpm_corpus_device_f32_tracks_scipy_f64():
     assert float(np.percentile(deltas, 99)) <= 0.5, \
         f"p99 delta {np.percentile(deltas, 99)}"
     # has-BPM decisions agree on effectively every step (the full
-    # 120-trace TPU corpus measured 0/21600 mismatches with the hybrid
-    # f64 refinement — BENCH_CORPUS_r05.json).
+    # 120-trace corpus, ``bench.py --bpm-corpus``, measures the same rate
+    # on a device).
     assert n_mismatch / n_steps <= 0.02, \
         f"has_bpm mismatch rate {n_mismatch / n_steps:.3f}"

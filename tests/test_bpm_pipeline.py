@@ -41,7 +41,7 @@ def test_bpm_matches_oracle(bpm_true):
 
 
 def test_bpm_float32_within_half_bpm():
-    # The TPU production dtype must stay within the ±0.5 BPM parity bar
+    # The float32 production dtype must stay within the ±0.5 BPM parity bar
     # (BASELINE.md) vs the float64 oracle.
     t, y = motion_trace(num_samples=128, fps=FPS, bpm=18.0, noise=0.02)
     res = _run(y.astype(np.float32), t.astype(np.float32), dtype=np.float32)

@@ -1,4 +1,4 @@
-"""Host feeder / native ring tests — the bounded-queue handoff the TPU
+"""Host feeder / native ring tests — the bounded-queue handoff the
 design introduces (SURVEY.md §5 'race detection' note) plus native-kernel
 parity."""
 

@@ -90,13 +90,12 @@ def test_decision_agreement_with_curve_fit():
 
 def test_f32_envelope_including_noise_windows():
     # The FULL f32 decision envelope, pure-noise windows included — the
-    # bound behind the "99% incl. noise" claim (VERDICT r3 #5).  On
-    # degenerate windows scipy's accept/reject is path-chaotic (it rejects
-    # by exhausting maxfev, a property of the f64 iterate path that f32
-    # arithmetic cannot reproduce: measured on-device, full-f64 emulation
-    # replicates 119/120 but costs 43x; ftol/xtol sweeps 3.45e-4→3e-7 and
-    # perturbed-restart consensus both fail to separate — see
-    # BENCHMARKS.md "Gaussian-fit decision envelope").  This test pins the
+    # bound behind the "99% incl. noise" claim.  On degenerate windows
+    # scipy's accept/reject is path-chaotic (it rejects by exhausting
+    # maxfev, a property of the f64 iterate path that f32 arithmetic cannot
+    # reproduce; a full-f64 fit replicates 119/120, and ftol/xtol sweeps
+    # 3.45e-4→3e-7 and perturbed-restart consensus both fail to separate
+    # the flip class).  This test pins the
     # measured envelope on a fixed probe so regressions are loud:
     # seed-2024 mixed probe = 112/120 overall, 1 false-reject, with the
     # realistic (non-noise) rows at 75/80.

@@ -178,7 +178,7 @@ def _drifting_fleet(s, n, t, method="average", mesh=None):
 
 
 def test_fleet_streaming_relock_follows_moving_subjects():
-    # VERDICT r4 #4: the fleet analog of the monitor's streaming-ROI
+    # The fleet analog of the monitor's streaming-ROI
     # re-lock — drifting subjects must be followed via batched coarse
     # localization + masked relock_streams, never the error-reset stall.
     n = 96
@@ -366,7 +366,7 @@ def test_locate_tsharded_collectives_are_expected():
 
 
 def test_fleet_lk_sampling_modes_step_agree():
-    # The fleet's TPU throughput mode ("onehot" one-hot MXU LK sampling)
+    # The one-hot LK sampling mode ("onehot")
     # must be BIT-identical to the exact slice mode on a live step chain;
     # the legacy "patches16" mode (bf16 im2col) agrees within bf16
     # rounding.
@@ -667,12 +667,12 @@ def test_fleet_cache_invalidated_by_external_states_assignment():
 
 
 def test_fleet_prev_onehot1_tolerance_and_exact_knob():
-    # The fleet throughput prev-window mode ("onehot1", per-channel one-hot
-    # MXU extraction) is ulp-seeded against the exact slice path: Newton
+    # The one-hot prev-window mode ("onehot1", per-channel one-hot
+    # extraction) is ulp-seeded against the exact slice path: Newton
     # iterates may drift within the same class as cv2's own SIMD-variant
     # spread.  Pin the contract: identical status decisions, sub-cv2-
-    # tolerance point drift on realistic texture, and the
-    # cfg.fleet_exact_lk knob forcing the bitwise slice path.
+    # tolerance point drift on realistic texture, and the slice path as
+    # the fleet's sampling mode.
     import dataclasses
 
     from respmon_tpu.ops import filters
@@ -714,10 +714,10 @@ def test_fleet_prev_onehot1_tolerance_and_exact_knob():
     ds = np.abs(results["onehot1"][1] - results["slices"][1])
     assert np.nanmax(ds) < 0.01, f"sample drift {np.nanmax(ds)}"
 
-    # The exactness knob forces the slice path (and non-TPU backends
-    # always get it).
-    import dataclasses as _dc2
-    cfg_exact = _dc2.replace(FLOW_CFG, fleet_exact_lk=True)
-    assert streams_mod.fleet_lk_prev_sample(cfg_exact) == "slices"
-    assert streams_mod.fleet_lk_prev_sample(FLOW_CFG) in ("slices",
-                                                          "onehot1")
+    # Fleets take the slice path in both roles whatever the backend:
+    # calibrate() installs it, so fleet steps reproduce the single-stream
+    # monitor bit-for-bit.
+    mon = streams_mod.MultiStreamMonitor(FLOW_CFG, None, (60, 80), FPS)
+    mon.calibrate(clips[:, :32])
+    assert (mon.spec.lk_sample, mon.spec.lk_prev_sample) == ("slices",
+                                                             "slices")

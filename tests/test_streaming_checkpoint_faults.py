@@ -274,7 +274,7 @@ def test_blackout_fault_triggers_error_and_recovery():
 
 
 def test_streaming_warm_recovery_skips_buffer_refill():
-    # VERDICT r4 #5: with streaming_roi on, the rolling rings stay warm
+    # With streaming_roi on, the rolling rings stay warm
     # through the error state (frames absorb during the wait), so the
     # post-reset calibration localizes from the rings within a few frames
     # instead of dead-waiting a full buffer_length refill.
